@@ -1,6 +1,6 @@
 """Pykmertools: drop-in Python API compatible with the reference's PyO3
-module (pybindings/pykmertools.pyi:1-244), backed by the TPU-native
-kmertools_tpu kernels.
+module (pybindings/pykmertools.pyi:1-244), backed by the JAX
+kmertools_jax kernels.
 
 Modules:
     OligoComputer      - oligonucleotide frequency vectors
@@ -15,8 +15,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from kmertools_tpu.io.batch import encode_bases
-from kmertools_tpu.utils import codec
+from kmertools_jax.io.batch import encode_bases
+from kmertools_jax.utils import codec
 from pykmertools import utils
 
 __all__ = [
@@ -29,6 +29,10 @@ __all__ = [
 ]
 
 _U64MAX = (1 << 64) - 1
+
+# OligoComputer batches histogrammed on the JAX device path this process
+# (observability: the native host kernel takes them on CPU-only backends)
+DEVICE_BATCHES = 0
 
 
 def _pad_codes(seq: str | bytes, width: int | None = None) -> np.ndarray:
@@ -112,7 +116,7 @@ class MinimiserGenerator:
 
 
 def _minimiser_records(seq: bytes, wsize: int, msize: int):
-    from kmertools_tpu.ops.kmer_minimiser import sequence_minimiser_records
+    from kmertools_jax.ops.kmer_minimiser import sequence_minimiser_records
 
     return sequence_minimiser_records(seq, wsize, msize)
 
@@ -149,35 +153,18 @@ class OligoComputer:
             return self._postprocess(counts, totals, norm, mins)
         import jax.numpy as jnp
 
-        from kmertools_tpu.ops import encode, histogram, pallas_histogram
+        from kmertools_jax.ops import encode, histogram
 
+        global DEVICE_BATCHES
+        DEVICE_BATCHES += 1
         fwd, rc, valid = encode.kmer_ids_small(jnp.asarray(codes), k)
-        if pallas_histogram.use_pallas():
-            ids = jnp.minimum(fwd, rc) if mins else fwd
-            bin_values = jnp.asarray(
-                codec.canonical_bin_values(k)
-                if mins
-                else np.arange(nbins, dtype=np.int32)
-            )
-            counts, totals = pallas_histogram.per_read_histogram_tpu(
-                ids.astype(jnp.int32), valid, bin_values, nbins
-            )
-        elif histogram.prefer_scatter():
-            ids = jnp.minimum(fwd, rc) if mins else fwd
-            if mins:
-                slot_table = jnp.asarray(codec.canonical_slot_table(k))
-                ids = jnp.take(slot_table, jnp.where(valid, ids, 0), mode="clip")
-            counts, totals = histogram.per_read_histogram_scatter(
-                ids.astype(jnp.int32), valid, nbins
-            )
-        elif mins:
-            slot_table = jnp.asarray(codec.canonical_slot_table(k))
-            ids = jnp.minimum(fwd, rc)
-            counts, totals = histogram.per_read_histogram_gathered(
-                ids, valid, slot_table, nbins
-            )
-        else:
-            counts, totals = histogram.per_read_histogram(fwd, valid, nbins)
+        ids = jnp.minimum(fwd, rc) if mins else fwd
+        slot_table = (
+            jnp.asarray(codec.canonical_slot_table(k)) if mins else None
+        )
+        counts, totals = histogram.per_read_counts(
+            ids, valid, nbins, slot_table
+        )
         return self._postprocess(counts, totals, norm, mins)
 
     def _native_counts(self, codes, width, nbins, mins):
@@ -191,7 +178,7 @@ class OligoComputer:
 
         import jax
 
-        from kmertools_tpu import native
+        from kmertools_jax import native
 
         k = self._ksize
         if (
@@ -206,7 +193,7 @@ class OligoComputer:
         devs = jax.local_devices()
         if not devs or devs[0].platform != "cpu":
             return None
-        from kmertools_tpu.io.batch import pack_planes
+        from kmertools_jax.io.batch import pack_planes
 
         packed, vb, _ = pack_planes(
             codes, np.full(codes.shape[0], width, np.int32)
@@ -338,6 +325,6 @@ class CgrComputer:
 
 def run_cli(argv=None) -> int:
     """Console entry point, mirroring pip/src/lib.rs:11-18."""
-    from kmertools_tpu.cli import main
+    from kmertools_jax.cli import main
 
     return main(argv)

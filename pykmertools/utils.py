@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from kmertools_tpu.utils import codec
+from kmertools_jax.utils import codec
 
 
 def to_acgt(kmer: int, ksize: int) -> str:

@@ -2,7 +2,7 @@
 
 The reference ships native wheels via maturin (pip/Cargo.toml:16-21,
 .github/workflows/pypi.yml); the equivalent here is a setuptools build
-step that compiles ``kmertools_tpu/native/kthost.cpp`` to
+step that compiles ``kmertools_jax/native/kthost.cpp`` to
 ``libkthost.so`` inside the wheel. Compilation is best-effort: without
 a toolchain the wheel is still produced and the runtime falls back to
 building lazily on first use (native/__init__.py), or to the pure
@@ -21,9 +21,9 @@ class build_py_with_native(build_py):
         super().run()
         src = os.path.join(
             os.path.dirname(os.path.abspath(__file__)),
-            "kmertools_tpu", "native", "kthost.cpp",
+            "kmertools_jax", "native", "kthost.cpp",
         )
-        out_dir = os.path.join(self.build_lib, "kmertools_tpu", "native")
+        out_dir = os.path.join(self.build_lib, "kmertools_jax", "native")
         out = os.path.join(out_dir, "libkthost.so")
         os.makedirs(out_dir, exist_ok=True)
         try:

@@ -12,8 +12,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from kmertools_tpu.ops import count as cops
-from kmertools_tpu.ops.encode import canonical_ids_pair
+from kmertools_jax.ops import count as cops
+from kmertools_jax.ops.encode import canonical_ids_pair
 
 
 def _split(keys, k):
@@ -83,7 +83,7 @@ def test_block_join_end_to_end_device_parity(tmp_path, test_data):
     """Coverage batch program: block-join variant == binary-search
     variant on real encoded reads (the device paths the workload
     routes between)."""
-    from kmertools_tpu.workloads.coverage import (
+    from kmertools_jax.workloads.coverage import (
         _coverage_batch, _coverage_batch_blocks,
     )
 

@@ -5,9 +5,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from kmertools_tpu.io.batch import encode_bases
-from kmertools_tpu.ops import cgr as cgr_ops
-from kmertools_tpu.workloads.cgr import CgrComputer, OligoCgrComputer
+from kmertools_jax.io.batch import encode_bases
+from kmertools_jax.ops import cgr as cgr_ops
+from kmertools_jax.workloads.cgr import CgrComputer, OligoCgrComputer
 
 
 def test_cgr_exact_points():
@@ -85,34 +85,12 @@ def test_cgr_long_read_host_fallback(tmp_path):
     assert npoints == 40000
 
 
-def test_cgr_cpu_xla_sink_when_accelerator_inexact(tmp_path, test_data,
-                                                   monkeypatch):
-    """When the default backend fails the f64 exactness probe but
-    host-CPU XLA devices are registered (hetero), the scan routes to
-    them instead of the producer-thread numpy walk (VERDICT r2 weak#3):
-    DEVICE_SCAN_RUNS grows and bytes still match the golden."""
-    import jax
-
-    from kmertools_tpu.workloads import cgr as cgr_mod
-
-    monkeypatch.setattr(cgr_mod, "_f64_supported", lambda: False)
-    monkeypatch.setattr(
-        cgr_mod, "_cpu_scan_devices", lambda: list(jax.local_devices())
-    )
-    before = cgr_mod.DEVICE_SCAN_RUNS
-    out = tmp_path / "reads.cgr"
-    CgrComputer(str(test_data / "reads.fq"), str(out), 1).vectorise()
-    assert cgr_mod.DEVICE_SCAN_RUNS > before, "scan never ran on the sink"
-    assert out.read_bytes() == (test_data / "expected_reads.cgr").read_bytes()
-
-
 def test_cgr_no_sink_host_walk(tmp_path, test_data, monkeypatch):
-    """With no exact device set at all the host walk still produces
-    golden bytes (the pure fallback)."""
-    from kmertools_tpu.workloads import cgr as cgr_mod
+    """When the backend fails the exactness probe the host walk still
+    produces golden bytes."""
+    from kmertools_jax.workloads import cgr as cgr_mod
 
     monkeypatch.setattr(cgr_mod, "_f64_supported", lambda: False)
-    monkeypatch.setattr(cgr_mod, "_cpu_scan_devices", lambda: None)
     before = cgr_mod.DEVICE_SCAN_RUNS
     out = tmp_path / "reads.cgr"
     CgrComputer(str(test_data / "reads.fq"), str(out), 1).vectorise()
@@ -127,7 +105,7 @@ def test_oligocgr_sink_on_off(tmp_path, test_data):
     pattern)."""
     import os
 
-    from kmertools_tpu import native
+    from kmertools_jax import native
 
     if native.lib() is None:
         pytest.skip("native runtime unavailable")

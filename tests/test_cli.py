@@ -2,8 +2,8 @@
 
 import pytest
 
-from kmertools_tpu.cli import main
-from kmertools_tpu.utils.fops import load_lines_sorted
+from kmertools_jax.cli import main
+from kmertools_jax.utils.fops import load_lines_sorted
 
 
 def test_cli_oligo(tmp_path, test_data):
@@ -105,7 +105,7 @@ def test_cli_range_validation():
 
 def test_cli_version(capsys):
     """clap's version flag analog (args.rs:13-14)."""
-    from kmertools_tpu.version import __version__
+    from kmertools_jax.version import __version__
 
     with pytest.raises(SystemExit) as e:
         main(["--version"])
@@ -142,7 +142,7 @@ def test_api_stub_surface_matches_runtime():
 def test_oligo_set_max_memory_gb_semantics():
     """set_max_memory takes GB (reference oligo.rs:61-63) — a drop-in
     caller passing 6 (GB) must not get a tiny code batch."""
-    from kmertools_tpu.workloads.oligo import OligoComputer
+    from kmertools_jax.workloads.oligo import OligoComputer
 
     com = OligoComputer("/dev/null", "/dev/null", 4)
     com.set_max_memory(6)
@@ -172,7 +172,7 @@ def test_help_renders_clap_layout(capsys):
     pinned instead.)"""
     import pytest
 
-    from kmertools_tpu import cli
+    from kmertools_jax import cli
 
     with pytest.raises(SystemExit):
         cli.main(["-h"])

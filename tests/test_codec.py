@@ -3,7 +3,7 @@ exact-value tests: kmer/src/kmer.rs:113-176, kmer/src/lib.rs:56-71)."""
 
 import numpy as np
 
-from kmertools_tpu.utils import codec
+from kmertools_jax.utils import codec
 
 
 def test_numeric_to_kmer():
@@ -55,8 +55,8 @@ def test_native_f64_matches_rust_repr():
 
     import numpy as np
 
-    from kmertools_tpu import native
-    from kmertools_tpu.utils.fmt import rust_f64_repr
+    from kmertools_jax import native
+    from kmertools_jax.utils.fmt import rust_f64_repr
 
     so = native.lib()
     if so is None:

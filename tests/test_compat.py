@@ -4,7 +4,7 @@ exercising the pykmertools drop-in API."""
 import pykmertools as kt
 from pykmertools import utils as ktutils
 
-from kmertools_tpu.io import fastx
+from kmertools_jax.io import fastx
 
 
 def _read_seqs(path):

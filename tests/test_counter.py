@@ -5,8 +5,8 @@ import shutil
 import numpy as np
 import pytest
 
-from kmertools_tpu.utils.fops import load_lines_sorted
-from kmertools_tpu.workloads.counter import CountComputer
+from kmertools_jax.utils.fops import load_lines_sorted
+from kmertools_jax.workloads.counter import CountComputer
 
 
 def test_count_golden(tmp_path, test_data):
@@ -80,7 +80,7 @@ def test_count_multi_chunk_multi_part(tmp_path):
 
 
 def test_count_matches_bruteforce(tmp_path):
-    from kmertools_tpu.utils import codec
+    from kmertools_jax.utils import codec
 
     rng = np.random.default_rng(2)
     seqs = []
@@ -156,7 +156,7 @@ def test_duplicated_corpus_counts_exact(tmp_path):
     counts = {int(l.split("\t")[0]): int(l.split("\t")[1]) for l in lines}
     # brute force on the two distinct sequences
     from tests.test_parallel import _brute_counts
-    from kmertools_tpu.io.batch import encode_bases
+    from kmertools_jax.io.batch import encode_bases
 
     rows = [encode_bases(base.encode()), encode_bases(base[::-1].encode())]
     per_read = [_brute_counts([r], 15) for r in rows]
@@ -200,7 +200,7 @@ def test_counter_transfer_scales_with_uniques(tmp_path, monkeypatch):
     bucket above the unique count."""
     import numpy as np
 
-    from kmertools_tpu.workloads import counter as ctr_mod
+    from kmertools_jax.workloads import counter as ctr_mod
 
     monkeypatch.setenv("KMERTOOLS_NO_HETERO", "1")  # pin the device engine
     rng = np.random.default_rng(12)
@@ -236,7 +236,7 @@ def test_lookup_counts_pow2_table_exhaustive():
     space; bit_length(n-1) missed hits on exact-pow2 tables."""
     import jax.numpy as jnp
 
-    from kmertools_tpu.ops import count as cops
+    from kmertools_jax.ops import count as cops
 
     n = 64
     th = np.zeros(n, np.uint32)
@@ -257,7 +257,7 @@ def test_merge_sorted_batch_oracle():
     padding), sentinel tails."""
     import jax.numpy as jnp
 
-    from kmertools_tpu.ops import count as cops
+    from kmertools_jax.ops import count as cops
 
     rng = np.random.default_rng(7)
     SENT = np.uint32(0xFFFFFFFF)
@@ -306,9 +306,9 @@ def test_native_counter_matches_bruteforce():
     """NativeCounter (kthost.cpp:kt_ctr_*) vs a Python dict oracle:
     random codes with ambiguous bases, several batches, a mid-stream
     drain, per-partition sorted output."""
-    from kmertools_tpu import native
-    from kmertools_tpu.io.batch import pack_planes
-    from kmertools_tpu.workloads.counter import NativeCounter
+    from kmertools_jax import native
+    from kmertools_jax.io.batch import pack_planes
+    from kmertools_jax.workloads.counter import NativeCounter
 
     if native.lib() is None:
         pytest.skip("native runtime unavailable")
@@ -361,8 +361,8 @@ def test_counter_hetero_engines_match_device_only(tmp_path, monkeypatch):
     only (CPU default), device only (NO_HETERO), and both at once (the
     accelerator-backend production config, forced here) — including
     across spill chunks produced by different engines."""
-    from kmertools_tpu import native
-    from kmertools_tpu.workloads import counter as ctr_mod
+    from kmertools_jax import native
+    from kmertools_jax.workloads import counter as ctr_mod
 
     if native.lib() is None:
         pytest.skip("native runtime unavailable")
@@ -440,7 +440,7 @@ def test_multi_chunk_at_scale_exact(tmp_path):
         # per-chunk spill volume bounded by the unique high-water mark
         # (plus one batch of growth): the in-RAM bound behind the spills
         umark = max(1 << 16, int(c.memory_ceil_gb * 1e9 / 32.0))
-        from kmertools_tpu.workloads.counter import _read_tsv
+        from kmertools_jax.workloads.counter import _read_tsv
 
         per_chunk: dict[int, int] = {}
         for cid in c.chunk_ids:
@@ -479,7 +479,7 @@ def test_lookup_counts_bucketed_matches_reference(k):
     agree with the plain binary-search join on hits and misses."""
     import jax.numpy as jnp
 
-    from kmertools_tpu.ops import count as cops
+    from kmertools_jax.ops import count as cops
 
     rng = np.random.default_rng(k)
     space = np.uint64(1) << np.uint64(2 * k)
@@ -527,7 +527,7 @@ def test_lookup_counts_bucketed_matches_reference(k):
 def test_lookup_counts_bucketed_empty_table():
     import jax.numpy as jnp
 
-    from kmertools_tpu.ops import count as cops
+    from kmertools_jax.ops import count as cops
 
     boff, steps = cops.bucket_offsets(np.empty(0, np.uint64), 15, 18)
     got = cops.lookup_counts_bucketed(
@@ -580,8 +580,8 @@ def test_drain_wire_formats_exact(monkeypatch):
     be exact across its format decisions: no hi plane (k<=16), hi
     rebuilt from value boundaries (16<k<=23), full hi plane (k>23), and
     u16 counts promoted to u32 when any count reaches 65536."""
-    from kmertools_tpu.utils import codec
-    from kmertools_tpu.workloads.counter import DeviceAccumulator
+    from kmertools_jax.utils import codec
+    from kmertools_jax.workloads.counter import DeviceAccumulator
 
     monkeypatch.setenv("KMERTOOLS_NO_HETERO", "1")
     rng = np.random.default_rng(7)
@@ -626,13 +626,12 @@ def test_drain_wire_formats_exact(monkeypatch):
 
 
 def test_accumulator_grows_instead_of_spilling(monkeypatch):
-    """Pallas-path growth policy (counter.py:DeviceAccumulator._grow):
-    when the resolved unique count crosses the spill mark and capacity
-    is below KMERTOOLS_ACC_MAX, the device state doubles in place and
+    """Growth policy (counter.py:DeviceAccumulator._grow): when the
+    resolved unique count crosses the spill mark and capacity is below
+    KMERTOOLS_ACC_MAX, the device state doubles in place and
     needs_drain answers False — drained counts must stay exact across
-    the growth boundary. (CPU backends default the cap to 0, so the
-    env opt-in exercises the path the TPU default takes.)"""
-    from kmertools_tpu.workloads.counter import DeviceAccumulator
+    the growth boundary."""
+    from kmertools_jax.workloads.counter import DeviceAccumulator
 
     monkeypatch.setenv("KMERTOOLS_ACC_MAX", str(1 << 22))
     rng = np.random.default_rng(11)
@@ -641,7 +640,7 @@ def test_accumulator_grows_instead_of_spilling(monkeypatch):
     c0 = acc.C_dev
     assert acc.C_max == 1 << 22
     want: dict[int, int] = {}
-    from kmertools_tpu.utils import codec
+    from kmertools_jax.utils import codec
 
     def feed(n_batches):
         for _ in range(n_batches):
@@ -669,42 +668,43 @@ def test_accumulator_grows_instead_of_spilling(monkeypatch):
 
 
 def test_accumulator_exact_bound_grouped_resolves(monkeypatch):
-    """Exact-bound mode (VERDICT r5 #2): with a trusted unique bound
-    (the counter's exact position tally) and capacity covering it, the
-    accumulator resolves dispatches in groups of 8 — one n-fetch per 8
-    batches instead of per batch — and never drains mid-run. Without a
-    bound (or when the cap clamps it) the per-batch behaviour stays.
+    """Sizing rules of the device accumulator (single device): batches
+    resolve in groups of _RESOLVE_EVERY with one n-fetch, capacity
+    fills the merge network's power-of-two padding, the spill mark
+    leaves room for every unresolved batch's worst-case growth, and
+    capacity growth is off unless KMERTOOLS_ACC_MAX opts in (an
+    explicit capacity disables it again). Constructor-level: no merge
+    program is dispatched."""
+    from kmertools_jax.workloads import counter as ctr_mod
 
-    Runs on CPU by forcing the pallas-path sizing decisions; the merge
-    programs themselves are not dispatched (constructor-level test) —
-    the on-chip golden suite covers execution."""
-    from kmertools_tpu.ops import pallas_merge
-    from kmertools_tpu.workloads import counter as ctr_mod
+    monkeypatch.delenv("KMERTOOLS_ACC_MAX", raising=False)
+    monkeypatch.delenv("KMERTOOLS_ACC_CAP", raising=False)
+    tgt = 1 << 16
+    acc = ctr_mod.DeviceAccumulator(21, target_codes=tgt, n_devices=1)
+    assert acc._resolve_every == acc._RESOLVE_EVERY == 4
+    assert acc._unresolved_max == acc._LAG + 3
+    growth = tgt + 8 * 8192
+    m_dev = growth
+    n = acc.C_dev + m_dev
+    assert n & (n - 1) == 0, "capacity must fill the pow2 network"
+    assert acc.C_dev + m_dev >= 8 * growth + m_dev
+    margin = (acc._unresolved_max + 2) * growth
+    assert acc.spill_mark == acc.C_dev - margin > 0
+    assert acc.C_max == 0
+    assert not acc.needs_drain(acc.spill_mark)
+    assert acc.needs_drain(acc.spill_mark + 1)
 
-    monkeypatch.setattr(pallas_merge, "use_pallas_merge", lambda *a: True)
-    acc = ctr_mod.DeviceAccumulator(
-        21, target_codes=1 << 16, n_devices=1, expect_codes=1 << 20
-    )
-    assert acc._exact
-    assert acc._resolve_every == 8
-    assert acc._unresolved_max == acc._LAG + 7
-    assert acc.spill_mark == acc.C_dev
-    assert acc.C_dev >= (1 << 20)
-    assert not acc.needs_drain(1 << 20)
-
-    # no bound -> per-batch resolves, real spill mark
-    acc2 = ctr_mod.DeviceAccumulator(21, target_codes=1 << 16, n_devices=1)
-    assert not acc2._exact
-    assert acc2._resolve_every == 1
-    assert acc2.spill_mark < acc2.C_dev
-
-    # cap clamps below the bound -> exact mode must NOT engage
-    monkeypatch.setenv("KMERTOOLS_ACC_MAX", str(1 << 18))
+    # growth opt-in raises the cap; an explicit capacity turns it off
+    monkeypatch.setenv("KMERTOOLS_ACC_MAX", str(1 << 24))
+    acc2 = ctr_mod.DeviceAccumulator(21, target_codes=tgt, n_devices=1)
+    assert acc2.C_max == 1 << 24
+    assert acc2.C_dev == acc.C_dev
     acc3 = ctr_mod.DeviceAccumulator(
-        21, target_codes=1 << 16, n_devices=1, expect_codes=1 << 26
+        21, target_codes=tgt, n_devices=1, out_capacity=1 << 21
     )
-    assert not acc3._exact
-    assert acc3.spill_mark < acc3.C_dev
+    assert acc3.C_max == 0
+    assert acc3.C_dev == max(1 << 21, margin + 256)
+    assert acc3.spill_mark == acc3.C_dev - margin
 
 
 def test_drain_lo24_delta_wire_exact():
@@ -713,13 +713,13 @@ def test_drain_lo24_delta_wire_exact():
     bit-pack — and the drained (keys, counts) stay EXACT vs a plain
     accumulate oracle, including duplicate keys and the hi-run anchor
     reconstruction."""
-    from kmertools_tpu.workloads.counter import DeviceAccumulator
+    from kmertools_jax.workloads.counter import DeviceAccumulator
 
     rng = np.random.default_rng(77)
     k = 21
     want: dict[int, int] = {}
     acc = DeviceAccumulator(k, target_codes=1 << 13, n_devices=1)
-    from kmertools_tpu.utils import codec
+    from kmertools_jax.utils import codec
 
     for _ in range(10):
         codes = rng.integers(0, 4, size=(96, 96)).astype(np.uint8)

@@ -5,7 +5,7 @@ path in the reference repo (its totals imply an obsolete both-strands
 rule), so the authoritative goldens are expected_counts{,_unnorm}.vectors.
 """
 
-from kmertools_tpu.workloads.coverage import CovComputer
+from kmertools_jax.workloads.coverage import CovComputer
 
 
 def test_coverage_golden(tmp_path, test_data):
@@ -47,8 +47,8 @@ def test_native_sink_joins_coverage(tmp_path, test_data):
 
     import pytest
 
-    from kmertools_tpu import native
-    from kmertools_tpu.workloads.coverage import CovComputer
+    from kmertools_jax import native
+    from kmertools_jax.workloads.coverage import CovComputer
 
     if native.lib() is None:
         pytest.skip("native runtime unavailable")

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from kmertools_tpu.io import fastx
-from kmertools_tpu.parallel import dataflow
+from kmertools_jax.io import fastx
+from kmertools_jax.parallel import dataflow
 
 
 def _write_fastq(path, rng, n):
@@ -74,7 +74,7 @@ def test_sharded_oligo_concat_equals_whole(tmp_path):
     """Multi-host simulation: each host vectorises its byte-range shard
     independently; concatenating per-shard outputs in shard order must
     reproduce the whole-file output byte-for-byte."""
-    from kmertools_tpu.workloads.oligo import OligoComputer
+    from kmertools_jax.workloads.oligo import OligoComputer
 
     rng = np.random.default_rng(9)
     path = str(tmp_path / "r.fq")
@@ -105,9 +105,9 @@ def test_native_range_batcher_matches_python_shards(tmp_path):
     shard-local numbering) — multihost byte parity rides on this."""
     import numpy as np
 
-    from kmertools_tpu import native
-    from kmertools_tpu.io import batch as iob
-    from kmertools_tpu.parallel import dataflow
+    from kmertools_jax import native
+    from kmertools_jax.io import batch as iob
+    from kmertools_jax.parallel import dataflow
 
     if native.lib() is None:
         import pytest

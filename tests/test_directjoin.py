@@ -1,8 +1,7 @@
 """Direct-bucket pre-binned count-table join (ops/count.py:
 direct_table + lookup_bins_direct).
 
-The block join's measured TPU ceiling is gather issue rate (~8.4e7
-gathers/s at 3 gathers per query, PERF.md); the direct layout indexes
+The block join issues 3 gathers per query; the direct layout indexes
 a private padded row block per key prefix arithmetically and stores
 pre-binned values, so a query resolves with ONE gather. These tests
 pin exact bin agreement with the binary-search join + host binning
@@ -14,8 +13,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from kmertools_tpu.ops import count as cops
-from kmertools_tpu.ops.encode import canonical_ids_pair
+from kmertools_jax.ops import count as cops
+from kmertools_jax.ops.encode import canonical_ids_pair
 
 
 def _split(keys, k):
@@ -110,7 +109,7 @@ def test_direct_join_end_to_end_device_parity():
     """Coverage batch program: direct-join variant == binary-search
     variant on real encoded reads (the device paths the workload
     routes between)."""
-    from kmertools_tpu.workloads.coverage import (
+    from kmertools_jax.workloads.coverage import (
         _coverage_batch, _coverage_batch_direct,
     )
 
@@ -151,7 +150,7 @@ def test_coverage_golden_per_join_mode(tmp_path, test_data, monkeypatch,
     golden — the join layout must never change output bytes. (direct
     is the auto default when its footprint fits, so blocks/bsearch need
     the pin to stay covered.)"""
-    from kmertools_tpu.workloads.coverage import CovComputer
+    from kmertools_jax.workloads.coverage import CovComputer
 
     monkeypatch.setenv("KMERTOOLS_NO_HETERO", "1")
     monkeypatch.setenv("KMERTOOLS_COV_JOIN", mode)
@@ -179,10 +178,8 @@ def test_direct_join_compact_quotient_layout():
     assert dt is not None
     rows, p_bits, bin_bits, planes = dt
     assert planes == 1, "compact layout should win at this scale"
-    # canonical-skew max/mean span ratio + the 64-lane row floor (the
-    # TPU gather cliffs ~9x below 64-lane rows) bound the padding
-    # overhead: ~21 B/key at this small scale, ~13 B/key measured at
-    # 100M keys (the 2-plane layout paid ~18 B/key + 2x gather width)
+    # canonical-skew max/mean span ratio + the 64-lane row floor bound
+    # the padding overhead: ~21 B/key at this small scale
     assert rows.nbytes / len(keys) <= 24.0  # bytes per key
     q = np.concatenate([
         rng.choice(keys, 2000),

@@ -4,10 +4,10 @@ these implicitly via its streaming iterators)."""
 import numpy as np
 import pytest
 
-from kmertools_tpu.workloads.coverage import CovComputer
-from kmertools_tpu.workloads.counter import CountComputer
-from kmertools_tpu.workloads.oligo import OligoComputer
-from kmertools_tpu.workloads import minimisers
+from kmertools_jax.workloads.coverage import CovComputer
+from kmertools_jax.workloads.counter import CountComputer
+from kmertools_jax.workloads.oligo import OligoComputer
+from kmertools_jax.workloads import minimisers
 
 
 def _fq(path, reads):
@@ -86,13 +86,13 @@ def test_ctr_refuses_stdin(tmp_path):
     consumed stdin and the run emitted an EMPTY kmers.counts."""
     import pytest
 
-    from kmertools_tpu.workloads.counter import CountComputer
+    from kmertools_jax.workloads.counter import CountComputer
 
     c = CountComputer("-", str(tmp_path), 15)
     with pytest.raises(ValueError, match="rewindable"):
         c.count_and_merge(True)
     # coverage composes the counter, so its build refuses too
-    from kmertools_tpu.workloads.coverage import CovComputer
+    from kmertools_jax.workloads.coverage import CovComputer
 
     cov = CovComputer("-", str(tmp_path), 4, 2, 3)
     with pytest.raises(ValueError, match="rewindable"):

@@ -9,8 +9,8 @@ def test_pack_unpack_roundtrip():
     plane exactly, including ambiguous/padding positions."""
     import jax.numpy as jnp
 
-    from kmertools_tpu.io.batch import pack_planes
-    from kmertools_tpu.ops.encode import unpack_planes
+    from kmertools_jax.io.batch import pack_planes
+    from kmertools_jax.ops.encode import unpack_planes
 
     rng = np.random.default_rng(5)
     codes = rng.integers(0, 5, size=(16, 128)).astype(np.uint8)  # incl. 4s
@@ -28,8 +28,8 @@ def test_pack_clean_path_equivalence():
     n_ambig must count exactly the in-length ambiguous codes."""
     import jax.numpy as jnp
 
-    from kmertools_tpu.io.batch import pack_planes
-    from kmertools_tpu.ops.encode import unpack_packed, unpack_planes
+    from kmertools_jax.io.batch import pack_planes
+    from kmertools_jax.ops.encode import unpack_packed, unpack_planes
 
     rng = np.random.default_rng(11)
     lengths = np.array([128, 100, 57, 0, 8], dtype=np.int32)
@@ -51,9 +51,9 @@ def test_pack_clean_path_equivalence():
     assert n_ambig == 2
 import pytest
 
-from kmertools_tpu.io.batch import encode_bases
-from kmertools_tpu.ops import encode
-from kmertools_tpu.utils import codec
+from kmertools_jax.io.batch import encode_bases
+from kmertools_jax.ops import encode
+from kmertools_jax.utils import codec
 
 
 def _pad(seq: bytes, w: int = 32) -> np.ndarray:

@@ -14,7 +14,7 @@ import time
 import numpy as np
 import pytest
 
-from kmertools_tpu.workloads import common
+from kmertools_jax.workloads import common
 
 
 def _sink(delay=0.0, log=None, name=""):
@@ -152,14 +152,14 @@ def test_oligo_two_sink_output_identical(tmp_path, test_data, monkeypatch):
             seq = rng.choice(list(b"ACGT"), size=L).astype(np.uint8)
             f.write(b">r%d\n" % i + seq.tobytes() + b"\n")
 
-    from kmertools_tpu.workloads.oligo import OligoComputer
+    from kmertools_jax.workloads.oligo import OligoComputer
 
     ref_out = tmp_path / "single.kmers"
     OligoComputer(str(corpus), str(ref_out), 4, True).vectorise()
 
     # plan_hetero_sinks (common.py) is the single consumer now
     monkeypatch.setattr(
-        common, "hetero_device_sets", lambda: [devs[:4], devs[4:]]
+        common, "hetero_device_sets", lambda n=None: [devs[:4], devs[4:]]
     )
     het_out = tmp_path / "hetero.kmers"
     OligoComputer(str(corpus), str(het_out), 4, True).vectorise()
@@ -169,8 +169,8 @@ def test_oligo_two_sink_output_identical(tmp_path, test_data, monkeypatch):
 def test_sink_rate_priors_persist_across_runs():
     """A sink's learned rate survives into the next run (keyed by name):
     the scheduler must NOT re-explore a known-slow sink with the opening
-    batch — on a remote-attached chip that explore batch is seconds of
-    tunnel transfer at the head of the consume line."""
+    batch — on a high-RTT device that explore batch is a stall at the
+    head of the consume line."""
     for k in ("t:slow", "t:fast"):
         common._SINK_PRIORS.pop(k, None)
     routed1, routed2 = [], []

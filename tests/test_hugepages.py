@@ -1,4 +1,4 @@
-"""The per-boot hugepage probe (kmertools_tpu.__init__._tune_hugepages).
+"""The per-boot hugepage probe (kmertools_jax.__init__._tune_hugepages).
 
 numpy madvises MADV_HUGEPAGE for allocations >= 4 MB; on lazily-paged
 VMs each 2 MB huge-page fault can cost ~150 ms, so the package import
@@ -41,7 +41,7 @@ def _boot_id() -> str:
 def _seed(tmp_path, verdict: str, age_s: float = 0.0) -> None:
     import time
 
-    d = tmp_path / "kmertools_tpu"
+    d = tmp_path / "kmertools_jax"
     d.mkdir(parents=True, exist_ok=True)
     (d / "hugepage_probe").write_text(
         f"{_boot_id()} {verdict} {time.time() - age_s:.0f}\n"
@@ -51,7 +51,7 @@ def _seed(tmp_path, verdict: str, age_s: float = 0.0) -> None:
 def test_cached_slow_verdict_disables_numpy_madvise(tmp_path):
     _seed(tmp_path, "slow")
     out = _run(
-        "import kmertools_tpu, os;"
+        "import kmertools_jax, os;"
         "print(os.environ.get('NUMPY_MADVISE_HUGEPAGE'))",
         tmp_path,
     )
@@ -61,7 +61,7 @@ def test_cached_slow_verdict_disables_numpy_madvise(tmp_path):
 def test_cached_fast_verdict_leaves_numpy_alone(tmp_path):
     _seed(tmp_path, "fast")
     out = _run(
-        "import kmertools_tpu, os;"
+        "import kmertools_jax, os;"
         "print(os.environ.get('NUMPY_MADVISE_HUGEPAGE'))",
         tmp_path,
     )
@@ -70,9 +70,9 @@ def test_cached_fast_verdict_leaves_numpy_alone(tmp_path):
 
 def test_opt_out_skips_probe(tmp_path):
     out = _run(
-        "import kmertools_tpu, os;"
+        "import kmertools_jax, os;"
         "print(os.path.exists(os.path.join("
-        "os.environ['XDG_CACHE_HOME'], 'kmertools_tpu', 'hugepage_probe')))",
+        "os.environ['XDG_CACHE_HOME'], 'kmertools_jax', 'hugepage_probe')))",
         tmp_path,
         extra_env={"KMERTOOLS_HUGEPAGES": "1"},
     )
@@ -81,9 +81,9 @@ def test_opt_out_skips_probe(tmp_path):
 
 def test_probe_runs_and_caches_once(tmp_path):
     out = _run(
-        "import kmertools_tpu, os;"
+        "import kmertools_jax, os;"
         "p = os.path.join(os.environ['XDG_CACHE_HOME'],"
-        " 'kmertools_tpu', 'hugepage_probe');"
+        " 'kmertools_jax', 'hugepage_probe');"
         "print(open(p).read().split()[1])",
         tmp_path,
     )
@@ -96,9 +96,9 @@ def test_expired_verdict_reprobes(tmp_path):
     older than the TTL must be re-measured, not trusted."""
     _seed(tmp_path, "slow", age_s=10_000)
     out = _run(
-        "import kmertools_tpu, os;"
+        "import kmertools_jax, os;"
         "p = os.path.join(os.environ['XDG_CACHE_HOME'],"
-        " 'kmertools_tpu', 'hugepage_probe');"
+        " 'kmertools_jax', 'hugepage_probe');"
         "f = open(p).read().split();"
         "import time; print(time.time() - float(f[2]) < 300)",
         tmp_path,
@@ -109,13 +109,13 @@ def test_expired_verdict_reprobes(tmp_path):
 
 def test_legacy_two_field_cache_is_stale(tmp_path):
     """Round-2 cache files (no timestamp) must not satisfy the TTL."""
-    d = tmp_path / "kmertools_tpu"
+    d = tmp_path / "kmertools_jax"
     d.mkdir(parents=True, exist_ok=True)
     (d / "hugepage_probe").write_text(f"{_boot_id()} fast\n")
     out = _run(
-        "import kmertools_tpu, os;"
+        "import kmertools_jax, os;"
         "p = os.path.join(os.environ['XDG_CACHE_HOME'],"
-        " 'kmertools_tpu', 'hugepage_probe');"
+        " 'kmertools_jax', 'hugepage_probe');"
         "print(len(open(p).read().split()))",
         tmp_path,
     )

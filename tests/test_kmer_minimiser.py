@@ -5,8 +5,8 @@ import re
 
 import pytest
 
-from kmertools_tpu.ops.kmer_minimiser import KmerMinimiserGenerator
-from kmertools_tpu.utils.codec import numeric_to_kmer
+from kmertools_jax.ops.kmer_minimiser import KmerMinimiserGenerator
+from kmertools_jax.utils.codec import numeric_to_kmer
 
 REF = "/root/reference/kmer/src/kmer_minimisers.rs"
 

@@ -11,9 +11,9 @@ import os
 import numpy as np
 import pytest
 
-from kmertools_tpu.utils import codec
-from kmertools_tpu.utils.fops import load_lines_sorted
-from kmertools_tpu.workloads import minimisers as wmin
+from kmertools_jax.utils import codec
+from kmertools_jax.utils.fops import load_lines_sorted
+from kmertools_jax.workloads import minimisers as wmin
 
 
 @pytest.fixture(autouse=True, params=["hetero", "device"])
@@ -200,7 +200,7 @@ def test_matches_oracle_long_split(tmp_path, seed):
 
 # ------------------------------------------------------------ golden files
 def test_s2m_golden(tmp_path, test_data):
-    from kmertools_tpu.workloads import common
+    from kmertools_jax.workloads import common
 
     before = common.MESH_DISPATCHES
     out = tmp_path / "seq_minimisers"
@@ -215,7 +215,7 @@ def test_s2m_golden(tmp_path, test_data):
 
 
 def test_m2s_golden(tmp_path, test_data):
-    from kmertools_tpu.workloads import common
+    from kmertools_jax.workloads import common
 
     before = common.MESH_DISPATCHES
     out = tmp_path / "minimisers"
@@ -299,7 +299,7 @@ def test_window_records_matches_extract_records():
     drops."""
     import jax.numpy as jnp
 
-    from kmertools_tpu.ops import minimiser as mops
+    from kmertools_jax.ops import minimiser as mops
 
     rng = np.random.default_rng(13)
     for m, wsize in ((3, 5), (7, 31), (17, 31)):
@@ -349,16 +349,14 @@ def test_window_records_matches_extract_records():
 
 
 def test_native_scanner_short_only_on_accelerator(monkeypatch):
-    """Routing rationale pin (VERDICT r4 #6, measured round 5): on an
-    accelerator backend the native minimiser scanner must still be
-    AVAILABLE but flagged short-only — short-read buckets are
-    fetch-bound on a remote chip (~14x the record payload in window-min
-    planes; 0.73 s native vs 33 s device on 500k x 150 bp), while
-    contig buckets keep the device path (it wins there). On CPU
-    backends the scanner serves everything."""
+    """Routing pin: on an accelerator backend whose probed RTT is below
+    _COALESCE_RTT_S the native minimiser scanner must still be
+    AVAILABLE but flagged short-only — short-read buckets ship ~14x the
+    record payload in window-min planes, while contig buckets keep the
+    device path. On CPU backends the scanner serves everything."""
     import jax
 
-    from kmertools_tpu.workloads import minimisers as mws
+    from kmertools_jax.workloads import minimisers as mws
 
     import os
 
@@ -368,14 +366,14 @@ def test_native_scanner_short_only_on_accelerator(monkeypatch):
         # is correctly absent — nothing to route
         assert (
             os.environ.get("KMERTOOLS_NO_HETERO") == "1"
-            or __import__("kmertools_tpu.native", fromlist=["lib"]).lib()
+            or __import__("kmertools_jax.native", fromlist=["lib"]).lib()
             is None
         )
         return
     assert short_only is False  # tests run on the CPU backend
 
     class _Dev:
-        platform = "tpu"
+        platform = "gpu"
         id = 0
 
     monkeypatch.setattr(jax, "local_devices", lambda backend=None: [_Dev()])

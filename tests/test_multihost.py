@@ -10,7 +10,7 @@ import sys
 
 import pytest
 
-from kmertools_tpu.cli import main
+from kmertools_jax.cli import main
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -24,7 +24,7 @@ def _pythonpath() -> str:
 
 _BOOT = (
     "import jax; jax.config.update('jax_platforms','cpu'); "
-    "import sys; from kmertools_tpu.cli import main; "
+    "import sys; from kmertools_jax.cli import main; "
     "sys.exit(main(sys.argv[1:]))"
 )
 
@@ -103,8 +103,8 @@ def test_two_host_min_s2m_equals_whole_file(tmp_path):
 def test_multihost_shard_library_level(tmp_path):
     """In-process shard runs (no subprocess) concatenate byte-exactly
     for cgr — the library-level contract behind the CLI."""
-    from kmertools_tpu.parallel import dataflow
-    from kmertools_tpu.workloads.cgr import CgrComputer
+    from kmertools_jax.parallel import dataflow
+    from kmertools_jax.workloads.cgr import CgrComputer
 
     fa = tmp_path / "reads.fa"
     _make_corpus(fa, n_reads=20)
@@ -124,7 +124,7 @@ def test_multihost_shard_library_level(tmp_path):
 def test_two_host_ctr_equals_whole_file(tmp_path):
     """Sharded counting: every host spills its shard's chunks into the
     shared dir; host 0 merges. Counts must equal the whole-file run."""
-    from kmertools_tpu.utils.fops import load_lines_sorted
+    from kmertools_jax.utils.fops import load_lines_sorted
 
     fa = tmp_path / "reads.fa"
     _make_corpus(fa, n_reads=40, lens=(60, 120))

@@ -13,10 +13,10 @@ import os
 import numpy as np
 import pytest
 
-from kmertools_tpu import native
-from kmertools_tpu.io import fastx
-from kmertools_tpu.io import batch
-from kmertools_tpu.io.batch import batch_stream, native_batch_stream
+from kmertools_jax import native
+from kmertools_jax.io import fastx
+from kmertools_jax.io import batch
+from kmertools_jax.io.batch import batch_stream, native_batch_stream
 
 pytestmark = pytest.mark.skipif(
     native.lib() is None, reason="native runtime unavailable"
@@ -142,47 +142,12 @@ def test_seq_stats_matches_python(tmp_path):
     assert (st.seq_count, st.total_length) == (count, total)
 
 
-def test_seq_stats_k_positions_short_reads(tmp_path):
-    """kt_seq_stats_k: positions = sum(max(0, len-k+1)) — reads shorter
-    than k contribute ZERO, not a negative term (ADVICE r4). Native and
-    Python paths agree."""
-    import os
-
-    p = tmp_path / "short.fa"
-    lens = [3, 150, 0, 20, 21, 22, 7]
-    rng = np.random.default_rng(3)
-    with open(p, "wb") as f:
-        for i, L in enumerate(lens):
-            seq = rng.choice(list(b"ACGT"), size=L).astype(np.uint8)
-            f.write(b">r%d\n%s\n" % (i, seq.tobytes()))
-    k = 21
-    want = sum(max(0, L - k + 1) for L in lens)
-    st = fastx.seq_stats(str(p), k=k)
-    assert st.positions == want
-    # naive bases-(k-1)*reads undershoots here; the exact tally doesn't
-    assert st.total_length - (k - 1) * st.seq_count < want
-    os.environ["KMERTOOLS_NO_NATIVE"] = "1"
-    try:
-        from kmertools_tpu import native
-
-        native._lib = None
-        native._tried = False
-        st_py = fastx.seq_stats(str(p), k=k)
-    finally:
-        del os.environ["KMERTOOLS_NO_NATIVE"]
-        native._lib = None
-        native._tried = False
-    assert (st_py.seq_count, st_py.total_length, st_py.positions) == (
-        st.seq_count, st.total_length, want,
-    )
-
-
 def test_radix_argsort_matches_numpy_stable():
     """kt_radix_argsort_u64 must produce EXACTLY numpy's stable argsort
     permutation (the m2s output contract relies on stability: records
     pre-ordered by (read, start) sort by value only)."""
-    from kmertools_tpu import native
-    from kmertools_tpu.workloads.minimisers import _stable_argsort_u64
+    from kmertools_jax import native
+    from kmertools_jax.workloads.minimisers import _stable_argsort_u64
 
     so = native.lib()
     if so is None:
@@ -204,7 +169,7 @@ def test_translate_all_bytes_parity(tmp_path):
     every byte value that can appear on a sequence line (byte parity is
     the project's top invariant and the SIMD path only runs on AVX2
     hosts — this pins it wherever it runs)."""
-    from kmertools_tpu.utils.codec import SEQ_NT4_TABLE
+    from kmertools_jax.utils.codec import SEQ_NT4_TABLE
 
     payload = bytes(
         b for b in range(1, 256) if b not in (10, 13, ord(">"), ord("@"))
@@ -222,7 +187,7 @@ def test_pack_planes_matches_numpy_fuzz():
     """Native (AVX2 + scalar-tail) pack_planes vs the numpy reference
     computation: packed planes, valid bits, and the within-length
     ambiguity count."""
-    from kmertools_tpu import native
+    from kmertools_jax import native
 
     if native.lib() is None:
         import pytest

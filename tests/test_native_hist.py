@@ -9,10 +9,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from kmertools_tpu import native
-from kmertools_tpu.io.batch import pack_planes
-from kmertools_tpu.ops import encode, histogram
-from kmertools_tpu.utils import codec
+from kmertools_jax import native
+from kmertools_jax.io.batch import pack_planes
+from kmertools_jax.ops import encode, histogram
+from kmertools_jax.utils import codec
 
 
 def _native_hist(codes, k, canonical):
@@ -66,7 +66,7 @@ def test_native_hist_matches_xla(k, canonical):
             jnp.minimum(fwd, rc), valid, table, n_counts.shape[1]
         )
     else:
-        x_counts, x_totals = histogram.per_read_histogram(
+        x_counts, x_totals = histogram.per_read_histogram_scatter(
             fwd, valid, 4**k
         )
     np.testing.assert_array_equal(
@@ -81,7 +81,7 @@ def test_native_sink_joins_oligo(tmp_path, test_data):
     never change bytes."""
     import os
 
-    from kmertools_tpu.workloads.oligo import OligoComputer
+    from kmertools_jax.workloads.oligo import OligoComputer
 
     if native.lib() is None:
         pytest.skip("native runtime unavailable")
@@ -123,7 +123,7 @@ def test_native_hist_striped_long_rows(k, width, canonical):
             jnp.minimum(fwd, rc), valid, table, n_counts.shape[1]
         )
     else:
-        x_counts, x_totals = histogram.per_read_histogram(
+        x_counts, x_totals = histogram.per_read_histogram_scatter(
             fwd, valid, 4**k
         )
     np.testing.assert_array_equal(

@@ -3,7 +3,7 @@
 
 import numpy as np
 
-from kmertools_tpu.workloads.oligo import OligoComputer
+from kmertools_jax.workloads.oligo import OligoComputer
 
 
 def test_oligo_norm_golden(tmp_path, test_data):
@@ -81,7 +81,7 @@ def test_oligo_long_read_split(tmp_path):
     com.vectorise()
     counts = np.array(out.read_text().split(), dtype=np.int64)
     # brute force
-    from kmertools_tpu.utils import codec
+    from kmertools_jax.utils import codec
 
     pos_map, _, kcount = codec.kmer_pos_maps(4)
     expect = np.zeros(kcount, dtype=np.int64)
@@ -97,7 +97,7 @@ def test_mixed_length_bucket_ordering(tmp_path):
     order byte-for-byte (OrderedArrayEmitter reorder path)."""
     import numpy as np
 
-    from kmertools_tpu.workloads.oligo import OligoComputer
+    from kmertools_jax.workloads.oligo import OligoComputer
 
     rng = np.random.default_rng(17)
     lens = [60, 200, 400, 1500, 5000, 60, 3000, 90, 700, 11000, 64, 150]
@@ -121,7 +121,7 @@ def test_repeated_pipelined_runs_identical(tmp_path, test_data):
     """The reference's concurrency smoke test (composition/src/
     oligo.rs:326-368): repeated threaded runs must produce identical
     bytes. Our writer-thread pipeline is the analogous race surface."""
-    from kmertools_tpu.workloads.oligo import OligoComputer
+    from kmertools_jax.workloads.oligo import OligoComputer
 
     outs = []
     for i in range(4):
@@ -160,8 +160,8 @@ def test_oligo_multi_producer_parity(tmp_path, monkeypatch):
     import numpy as np
     import pytest
 
-    from kmertools_tpu import native
-    from kmertools_tpu.workloads.oligo import OligoComputer
+    from kmertools_jax import native
+    from kmertools_jax.workloads.oligo import OligoComputer
 
     if native.lib() is None:
         pytest.skip("native runtime required for range streams")
@@ -192,9 +192,9 @@ def test_oligo_multi_producer_parity(tmp_path, monkeypatch):
 def test_plan_producers_policy(tmp_path, monkeypatch):
     """Auto policy: never split gz/stdin/shards or tiny files; explicit
     KMERTOOLS_PRODUCERS wins but clamps to 1 without the native lib."""
-    from kmertools_tpu import native
-    from kmertools_tpu.parallel.dataflow import Shard
-    from kmertools_tpu.workloads.common import plan_producers
+    from kmertools_jax import native
+    from kmertools_jax.parallel.dataflow import Shard
+    from kmertools_jax.workloads.common import plan_producers
 
     small = tmp_path / "small.fa"
     small.write_text(">a\nACGT\n")

@@ -27,13 +27,13 @@ def test_wheel_contains_native_and_stubs(tmp_path):
         capture_output=True, text=True, timeout=600,
     )
     assert r.returncode == 0, r.stderr[-2000:]
-    wheels = list(tmp_path.glob("kmertools_tpu-*.whl"))
+    wheels = list(tmp_path.glob("kmertools_jax-*.whl"))
     assert len(wheels) == 1
     names = set(zipfile.ZipFile(wheels[0]).namelist())
     # C++ host runtime: compiled into the wheel (and source for the
     # lazy -march=native rebuild, native/__init__.py)
-    assert "kmertools_tpu/native/libkthost.so" in names
-    assert "kmertools_tpu/native/kthost.cpp" in names
+    assert "kmertools_jax/native/libkthost.so" in names
+    assert "kmertools_jax/native/kthost.cpp" in names
     # typed Python API contract (pybindings/pykmertools.pyi:1-244)
     assert "pykmertools/__init__.pyi" in names
     assert "pykmertools/py.typed" in names
@@ -41,4 +41,4 @@ def test_wheel_contains_native_and_stubs(tmp_path):
     meta = [n for n in names if n.endswith("entry_points.txt")]
     assert meta, "entry_points.txt missing from wheel"
     txt = zipfile.ZipFile(wheels[0]).read(meta[0]).decode()
-    assert "kmertools = kmertools_tpu.cli:main" in txt
+    assert "kmertools = kmertools_jax.cli:main" in txt

@@ -1,17 +1,14 @@
-"""Pallas merge-path accumulator merge (ops/pallas_merge.py).
+"""Accumulator merge (ops/count.py:merge_sorted_batch, the bitonic
+network every backend runs) against a plain numpy oracle: the union of
+the accumulator's (key, count) runs and the batch's keys (count 1
+each), summed per key with np.unique."""
 
-Oracle: the XLA bitonic network (ops/count.py:merge_sorted_batch),
-itself golden-pinned through the counter suite. The kernel runs in
-interpret mode here (CPU test env); the Mosaic lowering is exercised
-by the on-chip gate (evidence/) and the verify skill.
-"""
-
+import jax
 import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from kmertools_tpu.ops import count as cops
-from kmertools_tpu.ops.pallas_merge import merge_sorted_pallas
+from kmertools_jax.ops import count as cops
 
 SENT = np.uint32(0xFFFFFFFF)
 
@@ -48,28 +45,43 @@ def _sorted_pairs(rng, n, hi_max, lo_max, dup_pool=None):
     return hi[order], lo[order]
 
 
-def _check(ah, al, ac, bh, bl, tile=256):
-    got = merge_sorted_pallas(
-        jnp.asarray(ah), jnp.asarray(al), jnp.asarray(ac),
-        jnp.asarray(bh), jnp.asarray(bl), tile=tile, interpret=True,
-    )
-    want = cops.merge_sorted_batch(
+_merge = jax.jit(cops.merge_sorted_batch)
+
+
+def _oracle(ah, al, ac, bh, bl):
+    """Sorted unique keys and summed counts, sentinel pairs dropped."""
+    live_a = ~((ah == SENT) & (al == SENT))
+    live_b = ~((bh == SENT) & (bl == SENT))
+    keys = np.concatenate([
+        (ah[live_a].astype(np.uint64) << np.uint64(32)) | al[live_a],
+        (bh[live_b].astype(np.uint64) << np.uint64(32)) | bl[live_b],
+    ])
+    cnts = np.concatenate([
+        ac[live_a].astype(np.uint64),
+        np.ones(int(live_b.sum()), np.uint64),
+    ])
+    uk, inv = np.unique(keys, return_inverse=True)
+    sums = np.zeros(len(uk), np.uint64)
+    np.add.at(sums, inv, cnts)
+    return uk, sums
+
+
+def _check(ah, al, ac, bh, bl):
+    got = _merge(
         jnp.asarray(ah), jnp.asarray(al), jnp.asarray(ac),
         jnp.asarray(bh), jnp.asarray(bl),
     )
+    uk, sums = _oracle(*(np.asarray(x) for x in (ah, al, ac, bh, bl)))
     n_got = int(got[3])
-    n_want = int(want[3])
-    assert n_got == n_want, f"n_runs {n_got} != {n_want}"
-    for g, w, name in zip(got[:3], want[:3], "hi lo cnt".split()):
-        g = np.asarray(g)[:n_got]
-        w = np.asarray(w)[:n_want]
-        assert np.array_equal(g, w), (
-            f"{name} mismatch: {g[:10]} vs {w[:10]}"
-        )
+    assert n_got == len(uk), f"n_runs {n_got} != {len(uk)}"
+    oh, ol, oc = (np.asarray(g) for g in got[:3])
+    assert len(oh) >= len(ah) + len(bh)
+    keys = (oh[:n_got].astype(np.uint64) << np.uint64(32)) | ol[:n_got]
+    assert np.array_equal(keys, uk), f"keys {keys[:10]} vs {uk[:10]}"
+    assert np.array_equal(oc[:n_got].astype(np.uint64), sums)
     # tail contract: sentinels / zero counts
-    oh = np.asarray(got[0])
-    oc = np.asarray(got[2])
     assert (oh[n_got:] == SENT).all()
+    assert (ol[n_got:] == SENT).all()
     assert (oc[n_got:] == 0).all()
     return n_got
 
@@ -94,8 +106,8 @@ def test_merge_random(seed, shape):
 
 
 def test_merge_heavy_duplicates_span_tiles():
-    """One key repeated across many tiles: the carry chain must sum a
-    run far longer than a tile, and inject across every boundary."""
+    """One key repeated far more often than any other: its run spans
+    many network blocks and must sum into one entry."""
     C, M = 512, 1024
     ah, al, ac = _acc(
         np.array([3], np.uint32), np.array([7], np.uint32),
@@ -104,7 +116,7 @@ def test_merge_heavy_duplicates_span_tiles():
     bh, bl = _batch(
         np.full(900, 3, np.uint32), np.full(900, 7, np.uint32), M
     )
-    n = _check(ah, al, ac, bh, bl, tile=256)
+    n = _check(ah, al, ac, bh, bl)
     assert n == 1
 
 
@@ -151,7 +163,8 @@ def test_merge_extreme_lo_values():
 
 
 def test_merge_exact_tile_boundaries():
-    """Runs ending exactly at tile edges; C + M an exact tile multiple."""
+    """C + M exactly a power of two (no network padding), every
+    accumulator key hit once and new keys interleaved between them."""
     C, M = 256, 256
     hi = np.zeros(128, np.uint32)
     lo = (np.arange(128) * 2).astype(np.uint32)
@@ -161,70 +174,58 @@ def test_merge_exact_tile_boundaries():
         np.zeros(256, np.uint32),
         np.sort(np.concatenate([lo, lo + 1]).astype(np.uint32)), M,
     )
-    n = _check(ah, al, ac, bh, bl, tile=256)
+    n = _check(ah, al, ac, bh, bl)
     assert n == 256
 
 
-def test_accum_merge_pallas_path(monkeypatch):
-    """accum_merge routes through the Pallas kernel when the merge
-    gate says TPU: force it in interpret mode and compare against the
-    XLA-network path on the same inputs."""
-    import kmertools_tpu.ops.pallas_merge as pm
+def test_accum_merge_pallas_path():
+    """accum_merge (batch sort + network merge) over raw codes: the
+    canonical k-mers of every window without an ambiguous base, counted
+    by a plain Python loop, must equal the drained prefix."""
+    from kmertools_jax.utils import codec
 
     rng = np.random.default_rng(4)
     codes = rng.integers(0, 5, size=(16, 64)).astype(np.uint8)
     k = 21
-    C = 4096 - 16 * 64  # C + M power of two (merge_sorted_batch needs it)
-
+    C = 4096 - 16 * 64
     sentf = np.full(C, SENT, np.uint32)
-    base = (sentf.copy(), sentf.copy(), np.zeros(C, np.uint32))
-
-    want = cops.accum_merge(
-        jnp.asarray(base[0]), jnp.asarray(base[1]), jnp.asarray(base[2]),
-        jnp.asarray(codes), k,
-    )
-    want = [np.asarray(w) for w in want]
-    # accum_merge is jitted: drop the cached XLA-path trace so the
-    # monkeypatched gate is consulted again
-    cops.accum_merge.clear_cache()
-    monkeypatch.setattr(pm, "use_pallas_merge", lambda platform=None: True)
-    real = pm.merge_sorted_pallas
-    monkeypatch.setattr(
-        pm, "merge_sorted_pallas",
-        lambda *a, **kw: real(*a, tile=256, interpret=True),
-    )
     got = cops.accum_merge(
-        jnp.asarray(base[0]), jnp.asarray(base[1]), jnp.asarray(base[2]),
-        jnp.asarray(codes), k,
+        jnp.asarray(sentf), jnp.asarray(sentf.copy()),
+        jnp.asarray(np.zeros(C, np.uint32)), jnp.asarray(codes), k,
     )
-    cops.accum_merge.clear_cache()  # don't leak the forced path
-    assert int(got[3]) == int(want[3])
+    want: dict[int, int] = {}
+    for row in codes:
+        for i in range(len(row) - k + 1):
+            w = row[i:i + k]
+            if (w > 3).any():
+                continue
+            f, r = codec.kmer_to_numeric("".join("ACGT"[x] for x in w))
+            want[min(f, r)] = want.get(min(f, r), 0) + 1
     n = int(got[3])
-    for g, w in zip(got[:3], want[:3]):
-        assert np.array_equal(np.asarray(g)[:n], w[:n])
+    assert n == len(want)
+    oh, ol, oc = (np.asarray(g)[:n] for g in got[:3])
+    keys = (oh.astype(np.uint64) << np.uint64(32)) | ol
+    assert keys.tolist() == sorted(want)
+    assert oc.tolist() == [want[x] for x in sorted(want)]
 
 
 def test_merge_small_b_window_branch():
-    """tile >= 2048 enables the narrow-B (WB = T/4) network branch:
-    a sparse batch (every tile's span fits WB) must merge exactly, and
-    a DENSE region (spans exceeding WB) must fall back to the full 2T
-    network per tile — both vs the XLA oracle, duplicates included."""
+    """A small batch into a large accumulator (C + M padded up to the
+    next power of two): sparse batch keys, a dense cluster inside one
+    narrow key range, and duplicates across both sides."""
     rng = np.random.default_rng(21)
     C, M = 60_000, 2_500
-    # sparse: ~2.5k batch keys spread over 60k accumulator keys ->
-    # per-8064-tile spans ~340 << WB-128
+    # sparse: ~2.5k batch keys spread over 30k accumulator keys
     hi, lo = _sorted_pairs(rng, C // 2, 1 << 8, 1 << 30)
     ah, al, ac = _acc(hi, lo, rng.integers(1, 9, len(hi)), C)
     bhs, bls_ = _sorted_pairs(rng, M - 64, 1 << 8, 1 << 30)
     bh, bl = _batch(bhs, bls_, M)
-    _check(ah, al, ac, bh, bl, tile=2048)
+    _check(ah, al, ac, bh, bl)
 
-    # dense cluster: all batch keys inside ONE narrow key range so a
-    # single tile's span is the whole batch (> WB - 128 at WB = 512)
-    # -> that tile takes the full-network fallback
+    # dense cluster: all batch keys inside ONE narrow key range
     bh2 = np.full(M, 3, np.uint32)
     bl2 = np.sort(rng.integers(0, 1 << 12, M).astype(np.uint32))
-    _check(ah, al, ac, bh2, bl2, tile=2048)
+    _check(ah, al, ac, bh2, bl2)
 
     # duplicates across A and B in the small-branch regime
     pool_hi = rng.integers(0, 4, 64, dtype=np.uint32)
@@ -238,4 +239,4 @@ def test_merge_small_b_window_branch():
     )
     bh4, bl4 = _sorted_pairs(rng, 1_500, 0, 0, (pool_hi, pool_lo))
     bhp, blp = _batch(bh4, bl4, M)
-    _check(ah3, al3, ac3, bhp, blp, tile=2048)
+    _check(ah3, al3, ac3, bhp, blp)

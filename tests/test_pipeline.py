@@ -2,7 +2,7 @@
 
 import pytest
 
-from kmertools_tpu.workloads.common import run_pipelined
+from kmertools_jax.workloads.common import run_pipelined
 
 
 def test_consumer_error_propagates_not_deadlocks():
@@ -43,7 +43,7 @@ def test_pipeline_processes_all_batches_in_order():
 def test_maybe_trace_propagates_body_exception(tmp_path, monkeypatch):
     """With KMERTOOLS_PROFILE set, a body exception must propagate as
     itself — not be masked by 'generator didn't stop after throw()'."""
-    from kmertools_tpu.utils.profiling import maybe_trace
+    from kmertools_jax.utils.profiling import maybe_trace
 
     monkeypatch.setenv("KMERTOOLS_PROFILE", str(tmp_path))
     with pytest.raises(ValueError, match="inner"):
